@@ -1,8 +1,8 @@
 """Scale-out: sharded batch solve + multi-start global IK.
 
-Runs on whatever devices are visible — a TPU pod slice in production, or a
-CPU-simulated 8-device mesh here (the standard way to exercise pjit code
-without hardware, SURVEY.md §4).  The problem batch shards over a 1-D mesh;
+Runs on whatever devices are visible — the GPUs of one host, or, with
+JAX_PLATFORMS=cpu, a CPU-simulated 8-device mesh (the standard way to
+exercise pjit code without hardware, SURVEY.md §4).  The problem batch shards over a 1-D mesh;
 XLA inserts the collectives (the loop-termination check is the only
 per-iteration all-reduce).
 
@@ -19,10 +19,6 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 import jax
-
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from loik_tpu import SolverParams, make_problem

@@ -2,10 +2,10 @@
 
 A UR5 cell and a Panda cell each stream differential-IK problems; the padded
 super-batch path (parallel/mixed.py) embeds both serial chains into one
-common padded chain and solves the combined batch in a single program —
-every TPU vector lane stays busy regardless of which robot it carries.
+common padded chain and solves the combined batch in a single program,
+whichever robot each problem belongs to.
 
-Run: python examples/04_mixed_fleet.py   (CPU or TPU)
+Run: python examples/04_mixed_fleet.py   (CPU or GPU)
 """
 
 import jax

@@ -39,10 +39,9 @@ q_goal = jax.vmap(tree.integrate)(q0, dq)
 _, _, oR, op = tree.fwd_kinematics(q_goal)
 target_R, target_p = oR[:, ee], op[:, ee]
 
-# fused=False: this example runs in f64 for the ~1e-7 pose-error floor
-# (the fused f32 TPU path trades that for ~2 ms ticks; see README)
+# f64 for the ~1e-7 pose-error floor (f32 floors at ~1e-3; see README)
 res = solve_clik(tree, params, q0, target_R, target_p, link=ee,
-                 dt=0.1, steps=80, gain=2.0, fused=False)
+                 dt=0.1, steps=80, gain=2.0)
 print(f"reached {int(res.reached.sum())}/{B} poses")
 print(f"pose error: pos max {float(res.pos_err.max()):.2e} m, "
       f"rot max {float(res.rot_err.max()):.2e} rad")
@@ -56,14 +55,13 @@ ub = 0.5 * np.ones(tree.nv)
 problem = make_problem(tree, (ee,), lb=-ub, ub=ub)
 res_b = solve_clik(tree, params, q0, target_R, target_p, link=ee,
                    dt=0.1, steps=120, gain=4.0, max_task_velocity=0.3,
-                   problem=problem, fused=False)
+                   problem=problem)
 print(f"\nwith |nu| <= 0.5 rad/s bounds: reached {int(res_b.reached.sum())}"
       f"/{B}; final-tick joint speed "
       f"{float(jnp.max(jnp.abs(res_b.nu))):.1e} rad/s (settled)")
 
 # --- an unreachable pose fails loudly, not silently -----------------------
 far = solve_clik(tree, params, q0[:1], jnp.eye(3, dtype=q0.dtype),
-                 jnp.asarray([3.0, 0.0, 0.5], q0.dtype), link=ee, steps=40,
-                 fused=False)
+                 jnp.asarray([3.0, 0.0, 0.5], q0.dtype), link=ee, steps=40)
 print(f"\nunreachable pose: reached={bool(far.reached[0])}, stalls at "
       f"closest approach (pos err {float(far.pos_err[0]):.2f} m)")

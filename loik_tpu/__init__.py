@@ -1,6 +1,6 @@
-"""loik_tpu — a TPU-native constrained differential inverse kinematics engine.
+"""loik_tpu — a batched constrained differential inverse kinematics engine.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 Simple-Robotics/LoIK (RSS 2024 "Linear-time Differential Inverse Kinematics:
 an Augmented Lagrangian Perspective"): first-order ADMM over Riccati-like
 linear-time sweeps of the kinematic tree, with hard 6-D task equality
@@ -12,7 +12,7 @@ Two solver tiers, mirroring the reference's reference/optimized split
 - ``loik_tpu.oracle``  — dense, single-problem, f64 solver whose residuals
   come from the literal OSQP-form QP matrices; the semantic specification.
 - ``loik_tpu.solver``  — the production path: batched structure-of-arrays
-  state with trailing lane-aligned batch dim, trace-time-unrolled tree
+  state with a trailing batch dim, trace-time-unrolled tree
   sweeps, masked ``lax.while_loop`` termination, per-problem penalty
   adaptation; validated pass-by-pass against the oracle.
 """

@@ -27,41 +27,17 @@ from .solver.state import SolveResult, SolverState
 
 # One device program per tick: the tailored constraint update happens INSIDE
 # the jit so a tracking tick costs a single dispatch (+ the small b/A
-# transfer) instead of separate scatter dispatches per update — on a
-# remote-attached TPU each extra dispatch is a host round-trip.  On TPU the
-# tick solve runs as the fused kernel when it can (the XLA tick is per-op-
-# dispatch bound: measured 8.5 ms at B=1024 vs sub-ms fused — the same
-# routing bench.measure_device_ticks uses for the 1 kHz evidence).
-@functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def _tracking_jit(tree, params, slot, fused, q, problem, A, b, warm_state):
+# transfer) instead of separate scatter dispatches per update.
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _tracking_jit(tree, params, slot, q, problem, A, b, warm_state):
     problem = problem.update_constraint(slot, A=A, b=b)
-    if fused:
-        from .kernels.fused import _fused_body
-        from .solver.refine import default_batch_tile
-
-        bt = default_batch_tile(tree.njoints)
-        with jax.enable_x64(False):
-            return (
-                _fused_body(params, bt, False, tree, q, problem, warm_state),
-                problem,
-            )
     return _solve_impl(tree, params, q, problem, warm_state), problem
 
 
 class DiffIkSolver:
     def __init__(self, tree, params: SolverParams,
                  constraint_links: Sequence[int],
-                 problem: Optional[IkProblem] = None,
-                 fused=None):
-        """fused: production-kernel policy for `solve_tracking`/`track_scan`
-        — None (auto: fuse when eligible, warn once on a TPU fallback naming
-        the blocker), True/False to force, or "require" to raise when the
-        fused kernel cannot run (`kernels.fused.resolve_fused`)."""
-        if fused not in (None, True, False, "require"):
-            raise ValueError(
-                f"fused must be None, True, False, or 'require'; got {fused!r}"
-            )
-        self.fused = fused
+                 problem: Optional[IkProblem] = None):
         self.tree = tree
         self.params = params
         self.constraint_links = tuple(int(c) for c in constraint_links)
@@ -121,12 +97,11 @@ class DiffIkSolver:
         """Tight-tolerance solve below the ~1e-5 f32 floor.
 
         method="delta" (default): pure-f32 delta-duals correction with one
-        f64 KKT evaluation (`solver.refine.solve_delta_duals`) — no
-        emulated-f64 loop on TPU.  method="two-stage": f32 bulk + warm f64
-        refinement (`solve_two_stage`); also the fallback for trees with
-        configuration-dependent subspaces (universal joints).  On TPU the
-        f32 stages run as the fused Pallas kernel.  Keyword args forward to
-        the chosen backend."""
+        f64 KKT evaluation (`solver.refine.solve_delta_duals`) — no f64
+        loop.  method="two-stage": f32 bulk + warm f64 refinement
+        (`solve_two_stage`); also the fallback for trees with
+        configuration-dependent subspaces (universal joints).  Keyword args
+        forward to the chosen backend."""
         from .solver.refine import solve_delta_duals, solve_two_stage
 
         if problem is not None:
@@ -192,16 +167,8 @@ class DiffIkSolver:
         q = jnp.asarray(q)
         if q.ndim == 1:
             q = q[None]
-        from .kernels.fused import resolve_fused
-        from .solver.refine import default_batch_tile
-
-        fused = resolve_fused(
-            self.fused, self.tree, self.params, q.shape[0],
-            default_batch_tile(self.tree.njoints), dtype=q.dtype,
-            where="solve_tracking",
-        )
         res, self.problem = _tracking_jit(
-            self.tree, self.params, slot, fused, q, self.problem,
+            self.tree, self.params, slot, q, self.problem,
             None if A is None else jnp.asarray(A),
             None if b is None else jnp.asarray(b),
             self._state if self.params.warm_start else None,
@@ -241,7 +208,7 @@ class DiffIkSolver:
             self.tree, self.params, q, self.problem, slot,
             b_seq, A_seq=A_seq,
             warm_state=self._state if self.params.warm_start else None,
-            refine=refine, fused=self.fused,
+            refine=refine,
         )
         self._state = stream.state
         self.problem = self.problem.update_constraint(
@@ -274,8 +241,7 @@ class DiffIkSolver:
                 f"at link {link}; got links {self.constraint_links}"
             )
         return solve_clik(self.tree, self.params, q0, target_R, target_p,
-                          link, problem=self.problem, fused=self.fused,
-                          **kw)
+                          link, problem=self.problem, **kw)
 
     # ------------------------------------------------------------------ #
     # getter parity (task-solver-base.hpp:87-141)

@@ -1,4 +1,4 @@
-"""KinematicTree: the TPU-native replacement for `pinocchio::ModelTpl`.
+"""KinematicTree: the batched JAX replacement for `pinocchio::ModelTpl`.
 
 The reference keys every workspace array by joint index into a
 heterogeneous `pinocchio::Model` (loik-loid-data-optimized.hxx:40-104).  Here
@@ -54,7 +54,7 @@ HELICAL = 8              # screw: rotation + pitch-coupled translation along
                          # one axis (pinocchio JointModelHelical); the pitch
                          # is STATIC metadata (tuple in aux data, not a
                          # traced leaf — it parameterizes the motion
-                         # subspace, which the fused kernel derives from
+                         # subspace, which the solver derives from
                          # trace-time constants; changing pitch recompiles)
 SPHERICAL_ZYX = 9        # ball joint on the Euler Z-Y-X chart (pinocchio
                          # JointModelSphericalZYX): nq = nv = 3 Euler-angle
@@ -239,8 +239,6 @@ class KinematicTree:
         if t in (REVOLUTE, REVOLUTE_UNBOUNDED):
             ax = self.axis[i]
             if ax.ndim == 1:
-                # 2-D concat (not a 1-D reshape): Mosaic's layout inference
-                # rejects the (6,) -> (6,1) shape cast inside the fused kernel
                 return jnp.concatenate([jnp.zeros((3, 1), dt), ax[:, None]], axis=0)
             return jnp.concatenate([jnp.zeros_like(ax), ax], axis=-1)[..., None]
         if t == PRISMATIC:

@@ -176,6 +176,16 @@ class OracleSolver:
         self.oMi_R, self.oMi_p = _np(oR), _np(op)
         if self.tree.has_q_dependent_S:
             self.S = [_np(self.tree.joint_S(i, q)) for i in range(self.N)]
+        # child->parent transport of the Riccati recursion (BwdPass): fixed
+        # by liMi, so built once per solve instead of once per iteration
+        self.Xd = [None] * self.N
+        self.Xa_inv = [None] * self.N
+        for i in range(self.N):
+            if self.parents[i] >= 0:
+                self.Xd[i] = self._dual_action_matrix(self.liMi_R[i],
+                                                      self.liMi_p[i])
+                self.Xa_inv[i] = self._action_matrix(
+                    *self._se3_inv(self.liMi_R[i], self.liMi_p[i]))
 
     def _action_matrix(self, R, p):
         from .. import spatial
@@ -278,8 +288,7 @@ class OracleSolver:
             self.Dinv[i] = Di_inv
             par = self.parents[i]
             if par >= 0:
-                Xd = self._dual_action_matrix(self.liMi_R[i], self.liMi_p[i])
-                Xa_inv = self._action_matrix(*self._se3_inv(self.liMi_R[i], self.liMi_p[i]))
+                Xd, Xa_inv = self.Xd[i], self.Xa_inv[i]
                 self.His[par] += Xd @ (Pi @ Hi) @ Xa_inv
                 self.pis[par] += Xd @ (Pi @ pi - Hi @ Si @ Di_inv @ ri)
 

@@ -2,12 +2,13 @@
 
 The reference is strictly single-process — its CMakeLists.txt:111-117 lists
 no communication dependency and SURVEY.md §2's parallelism inventory found no
-threads/MPI/NCCL anywhere — so this module is net-new TPU-native surface
-(SURVEY.md §5 "Distributed communication backend"): every host contributes
-its process-local shard of one global problem batch, the jitted solve runs
-SPMD over the global 1-D ``batch`` mesh, and XLA inserts the collectives
-(the masked-termination ``any(running)`` all-reduce rides ICI within a slice
-and DCN across hosts; metric aggregation is a psum-style reduction).
+threads/MPI/NCCL anywhere — so this module is net-new surface (SURVEY.md §5
+"Distributed communication backend"): every host contributes its
+process-local shard of one global problem batch, the jitted solve runs SPMD
+over the global 1-D ``batch`` mesh, and XLA inserts the collectives (on
+GPUs the masked-termination ``any(running)`` all-reduce runs through NCCL
+every iteration, over NVLink within a host and the network across hosts;
+metric aggregation is a psum-style reduction).
 
 Tested without hardware by launching N OS processes with
 ``--xla_force_host_platform_device_count`` virtual CPU devices each
@@ -38,9 +39,9 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids=None) -> None:
     """Bootstrap multi-process JAX (idempotent).
 
-    On a real TPU pod slice the arguments are auto-detected from the TPU
-    metadata and ``initialize()`` suffices; for simulated hosts (or GPU/CPU
-    clusters) pass coordinator address + process count/id explicitly.
+    On GPU hosts (and for simulated CPU hosts) nothing detects the cluster:
+    pass ``coordinator_address`` (``host:port`` of process 0),
+    ``num_processes`` and ``process_id`` explicitly on every process.
     """
     global _initialized
     if _initialized:

@@ -2,13 +2,14 @@
 
 The reference is single-threaded, single-process (SURVEY.md §2 parallelism
 inventory: no NCCL/MPI/threads anywhere); scale in this rebuild comes from
-sharding the *problem batch* across chips with `jax.sharding` — XLA inserts
-the collectives (the termination check `any(running)` becomes an all-reduce
-over ICI each iteration; metric aggregation uses psum-style reductions).
-Cross-device traffic is inherently tiny: problems are independent.
+sharding the *problem batch* across devices with `jax.sharding` — XLA
+inserts the collectives (the termination check `any(running)` becomes an
+all-reduce each iteration, through NCCL on GPUs; metric aggregation uses
+psum-style reductions).  Cross-device traffic is inherently tiny: problems
+are independent.
 
-Works identically on a real pod slice and on the CPU-simulated 8-device mesh
-used by the tests (`--xla_force_host_platform_device_count`).
+Works identically on the GPUs of one host and on the CPU-simulated 8-device
+mesh used by the tests (`--xla_force_host_platform_device_count`).
 """
 
 from __future__ import annotations

@@ -49,9 +49,7 @@ class SolverParams:
                                          # verbose_ stream, loik-loid.hpp:
                                          # 501-506, loik-loid.hxx:320,345,362;
                                          # batched here, so the banner reports
-                                         # batch aggregates).  XLA path only —
-                                         # like logging, unsupported in the
-                                         # fused kernel.
+                                         # batch aggregates).
     check_feasibility: bool = True       # run infeasibility certificates; the
                                          # delta-refinement stage disables them
                                          # (degenerate in delta space)

@@ -1,6 +1,6 @@
 """Problem specification pytree.
 
-TPU-native form of `IkProblemFormulation` (ik-id-description.hpp:16-338):
+Batched form of `IkProblemFormulation` (ik-id-description.hpp:16-338):
 per-link tracking weights/targets, hard 6-D task equality constraints at a
 static set of links, and joint-velocity box bounds.  Constraint *links* are
 static metadata (the reference also fixes them per solver instance —

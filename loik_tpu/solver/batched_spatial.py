@@ -1,10 +1,9 @@
 """Spatial algebra specialized for the fast solver's trailing-batch layout.
 
-Every array carries the problem batch as its LAST axis so that on TPU the
-batch rides the 128-wide vector lanes; the tiny spatial dims (3/6) stay in
-sublanes or are unrolled.  A (B,N,6,6)-leading-batch layout would put a
-6-element axis on the lanes (5% utilization); this layout is the single most
-important deviation from a naive port of the reference's per-joint Eigen ops
+Every array carries the problem batch as its LAST axis, so each elementwise
+op runs contiguously across the whole batch while the tiny spatial dims
+(3/6) are unrolled at trace time.  This layout is the single most important
+deviation from a naive port of the reference's per-joint Eigen ops
 (SURVEY.md §7 hard part 1).
 
 Shapes: R (..., 3, 3, B), p (..., 3, B), motions/forces (..., 6, B),
@@ -21,14 +20,12 @@ ANG = slice(3, 6)
 
 
 # All contractions are SLICE-ACCUMULATE chains of elementwise FMAs over the
-# tiny spatial dims (3/6): no dot_general (Mosaic cannot lower trailing-batch
-# dots; XLA transposes around them), no axis reductions (each jnp.sum breaks
-# XLA elementwise fusion and forces an HBM round-trip of the intermediate —
-# measured ~5 ms/iteration at B=8192, fully bandwidth-bound), and no mid-axis
-# integer indexing (Mosaic lowers it as an unsupported gather).  Static
-# slices keep singleton axes; squeezes are explicit reshapes of singletons.
-# Slices and None (newaxis) are kept in SEPARATE indexing ops: a mixed
-# `x[..., 0:1, None, :]` lowers as a malformed gather in Mosaic under x64.
+# tiny spatial dims (3/6): no dot_general (XLA transposes around
+# trailing-batch dots, and a dot would also be subject to reduced matmul
+# precision), no axis reductions (each jnp.sum breaks XLA elementwise fusion
+# and writes the intermediate out to device memory), and no mid-axis integer
+# indexing (a gather).  Static slices keep singleton axes; squeezes are
+# explicit reshapes of singletons.
 
 
 def _sq(x, axis):
@@ -161,15 +158,12 @@ def act_sym6(R, p, H):
 
     Two implementations with identical math:
 
-    - f32 (the fused-kernel / VPU-issue-bound path): two dense 6x6 products
-      on full-height tiles — fewest vector instructions (the block form was
-      measured WORSE for f32 on v5e: its many small-tile ops issue worse
-      than two full-height products; see ROADMAP round-3 measurements).
-    - f64 (the XLA refinement stage, where emulated-f64 FLOPs dominate):
-      block form exploiting X* = [[R,0],[[p]x R, R]] and the symmetry of H —
-      six 3x3 rotations + three skew products, ~2.1x fewer multiplies, and
-      the bottom-left block is the mirrored top-right (SE3actOn's own
-      symmetric-triangle trick, loik-loid-optimized.hxx:66).
+    - f32: two dense 6x6 products — the fewest, largest elementwise ops.
+    - f64 (the refinement stage): block form exploiting
+      X* = [[R,0],[[p]x R, R]] and the symmetry of H — six 3x3 rotations
+      + three skew products, ~2.1x fewer multiplies, and the bottom-left
+      block is the mirrored top-right (SE3actOn's own symmetric-triangle
+      trick, loik-loid-optimized.hxx:66).
     """
     if H.dtype != jnp.float64:
         Xd = dual_action_matrix(R, p)
@@ -196,8 +190,8 @@ def inf_norm_b(x):
 def spd_inv(D):
     """Inverse of a small SPD matrix (..., k, k, B) by fully unrolled
     Cholesky + triangular inverse: every op is elementwise over the trailing
-    lanes, so it lowers in Mosaic (jnp.linalg.inv does not) and avoids the
-    XLA path's batch transposes around LAPACK-shaped kernels.  k is static
+    batch axis, which avoids the batch transposes around LAPACK-shaped
+    kernels that jnp.linalg.inv would bring.  k is static
     and tiny (joint dof: 1/3/6); D = S'HS + mu*I is SPD by construction."""
     k = D.shape[-2]
     if k == 1:

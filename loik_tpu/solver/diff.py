@@ -1,6 +1,6 @@
 """Differentiable solves: gradients THROUGH the diff-IK optimization.
 
-Net-new TPU-native surface with no reference analog (the C++ solver is not
+Net-new surface with no reference analog (the C++ solver is not
 differentiable in any form): policy learning, contact-implicit trajectory
 optimization, and model identification all want d(solution)/d(inputs) —
 d nu*/dq through the forward kinematics, d nu*/d(b, A, H_ref, bounds)
@@ -11,7 +11,7 @@ penalty adaptation, masked freezing) for a FIXED number of iterations
 under `lax.scan`, which is reverse-differentiable.  Each iteration is
 rematerialized (`jax.checkpoint`), so the backward pass costs one extra
 forward sweep per iteration instead of storing every intermediate — the
-standard unrolled-optimizer recipe on TPU.
+standard unrolled-optimizer recipe.
 
 Converged problems freeze under the masked merge exactly as in the
 while-loop driver, so for `num_iters` past the convergence point the
@@ -58,12 +58,7 @@ def solve_unrolled(tree, params: SolverParams, q, problem: IkProblem,
     count for the problem class (converged problems freeze, so extra
     iterations cost forward/backward FLOPs but do not change the answer);
     check ``res.converged`` on the primal values as usual.  Wrap in
-    `jax.jit` at the loss level — this function is plain traced code.
-
-    Runs the XLA loop (the fused Pallas kernel is a custom call with no
-    VJP); on TPU a jitted grad step costs ~55 ms at B=256 x 40 iterations
-    (measured, ur5) — fine for training loops, which are throughput- not
-    latency-bound."""
+    `jax.jit` at the loss level — this function is plain traced code."""
     if params.logging or params.verbose:
         raise ValueError("solve_unrolled supports neither logging nor "
                          "verbose (use solve)")

@@ -10,8 +10,8 @@ part 3 anticipated this).
 The fix exploits ADMM's warm-startability (the same property the reference
 uses across control ticks): run the solver in f32 at a tolerance safely
 above the f32 floor, then continue the unconverged-at-1e-6 problems in f64
-from the f32 state for a handful of iterations.  Stage 2 pays the TPU f64
-emulation cost only on the short tail, not the bulk of the work.
+from the f32 state for a handful of iterations.  Stage 2 pays the f64 cost
+only on the short tail, not the bulk of the work.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from ..params import SolverParams
 from ..problem import IkProblem
 from .solve import (_flat_nu, _reset_state, _solve_impl, _solve_loop,
-                    kkt_residual, prepare_problem, solve)
+                    kkt_residual, prepare_problem, solve, with_S_all)
 from .state import SolveResult, SolverState
 
 
@@ -34,15 +34,6 @@ from .state import SolveResult, SolverState
 def _solve_jit_delta(tree, params, q, problem, warm_state, tol_scales):
     return _solve_impl(tree, params, q, problem, warm_state,
                        tol_scales=tol_scales)
-
-
-def default_batch_tile(njoints: int) -> int:
-    """Fused-kernel batch tile sized so the per-tile VMEM working set
-    (~dozens of (N,6,6,bt) f32 SSA values) stays inside budget: N=7 at
-    bt=512 compiles while bt=1024 does not, so hold N*bt <~ 2048 where
-    possible.  128 is the floor — Mosaic requires the lane-axis block to be
-    a multiple of 128."""
-    return 256 if njoints * 256 <= 2048 else 128
 
 
 def _cast_state(st: SolverState, dtype) -> SolverState:
@@ -87,7 +78,7 @@ def solve_delta_refined(
     ones).  In delta space the residual-critical quantities are O(1e-5), so
     the mu_eq-amplified operators multiply SMALL vectors and absolute
     rounding errors fall to ~eps_f32 * O(1) ~ 1e-7 — below tol 1e-6 —
-    without any f64 (valuable on TPU, where f64 is emulated).
+    without any f64.
 
     Returns results in the ORIGINAL problem space (nu = nu_hat + dnu, true
     residuals — the delta-space task residual A dv - b_delta IS the original
@@ -190,9 +181,6 @@ def solve_delta_duals(
     stage2_mu: float = 1e-2,
     stage2_mu_eq_scale: float = 1e5,
     warm_state: Optional[SolverState] = None,
-    fused: Optional[bool] = None,
-    batch_tile: Optional[int] = None,
-    _interpret: bool = False,
 ) -> SolveResult:
     """Tight-tolerance solve with NO f64 loop: f32 stage 1 + f32 delta-duals
     correction stage.  The successor of `solve_two_stage`'s emulated-f64 tail
@@ -216,8 +204,7 @@ def solve_delta_duals(
     mechanism as `solve_delta_refined`).  Convergence checks in delta space
     evaluate d0 + P dx + A' dy = the original problem's true residuals.
 
-    Stage 2 runs FUSED on TPU (it is ordinary f32 solver work); infeasibility
-    certificates stay with stage 1 (degenerate in delta space,
+    Infeasibility certificates stay with stage 1 (degenerate in delta space,
     check_feasibility=False + freeze_infeasible_on_warm_start).
 
     Constant-subspace trees only (universal joints -> use solve_two_stage)."""
@@ -230,17 +217,6 @@ def solve_delta_duals(
     q = jnp.asarray(q)
     if q.ndim == 1:
         q = q[None]
-    if batch_tile is None:
-        batch_tile = default_batch_tile(tree.njoints)
-    from ..kernels.fused import resolve_fused
-
-    # dtype=None: the delta path casts to f32 internally, so its stages fuse
-    # regardless of q dtype (ADVICE r4); routing through resolve_fused also
-    # applies the scoped-VMEM eligibility rule for tall trees with
-    # check_interval>1 and gives this path the same loud-fallback /
-    # fused='require' policy as solve/stream
-    fused = resolve_fused(fused, tree, params, q.shape[0], batch_tile,
-                          dtype=None, where="solve_delta_duals")
     tol1 = max(stage1_tol, params.tol_abs)
     p1 = params.replace(
         tol_abs=tol1, tol_rel=max(stage1_tol, params.tol_rel),
@@ -258,29 +234,16 @@ def solve_delta_duals(
         tree.astype(f32), tree.astype(f64), p1, p2, q,
         _cast_problem(problem, f32), _cast_problem(problem, f64),
         _cast_state(warm_state, f32) if warm_state is not None else None,
-        fused=bool(fused), batch_tile=batch_tile, interpret=_interpret,
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnums=(2, 3),
-    static_argnames=("fused", "batch_tile", "interpret"),
-)
-def _delta_duals_jit(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
-                     fused=False, batch_tile=256, interpret=False):
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _delta_duals_jit(tree32, tree64, p1, p2, q, prob32, prob64, warm_state):
     f32, f64 = jnp.float32, jnp.float64
     B = q.shape[0]
 
     # ---- stage 1: plain f32 solve at the f32-floor tolerance -------------
-    if fused:
-        from ..kernels.fused import _fused_body
-
-        with jax.enable_x64(False):
-            res1 = _fused_body(p1, batch_tile, interpret, tree32,
-                               q.astype(f32), prob32, warm_state)
-    else:
-        res1 = _solve_impl(tree32, p1, q.astype(f32), prob32, warm_state)
+    res1 = _solve_impl(tree32, p1, q.astype(f32), prob32, warm_state)
     st1 = res1.state
 
     # ---- one f64 KKT-residual evaluation at the stage-1 point ------------
@@ -314,10 +277,7 @@ def _delta_duals_jit(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
     pp32 = prepare_problem(tree32, prob32, B, f32)
     if tree32.axis.ndim == 3:
         # batched geometry (mixed super-batch): precompute per-problem
-        # subspaces once; both the fused stage-2 kernel and the XLA loop
-        # consume them as data
-        from ..kernels.fused import with_S_all
-
+        # subspaces once; the loop consumes them as data
         pp32 = with_S_all(tree32, pp32, f32)
     prob_d = dataclasses.replace(
         pp32,
@@ -348,15 +308,8 @@ def _delta_duals_jit(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
     )
     st_d = _reset_state(tree32, p2, st_d, f32)
 
-    if fused:
-        from ..kernels.fused import fused_solve_loop
-
-        with jax.enable_x64(False):
-            st2 = fused_solve_loop(tree32, p2, prob_d, st_d, batch_tile,
-                                   interpret)
-    else:
-        with jax.default_matmul_precision("highest"):
-            st2 = _solve_loop(tree32, prob_d, p2, st_d)
+    with jax.default_matmul_precision("highest"):
+        st2 = _solve_loop(tree32, prob_d, p2, st_d)
 
     # ---- recombine in the original space --------------------------------
     nu_hat = _flat_nu(tree32, st1.nu)
@@ -409,9 +362,6 @@ def solve_two_stage(
     stage2_mu: float = 1e-3,
     stage2_mu_eq_scale: float = 1e6,
     warm_state: Optional[SolverState] = None,
-    fused_stage1: Optional[bool] = None,
-    batch_tile: Optional[int] = None,
-    _interpret: bool = False,
 ) -> SolveResult:
     """Solve at params.tol_abs/tol_rel accuracy using f32 for the bulk and a
     warm f64 tail.  `tree`/`q`/`problem` may be f32 or f64; outputs are f64.
@@ -450,56 +400,19 @@ def solve_two_stage(
     single = q.ndim == 1
     if single:
         q = q[None]
-    # stage 1 runs as the fused Pallas kernel when available: the whole f32
-    # ADMM loop stays in VMEM per batch tile and each tile stops at ITS OWN
-    # max iteration count instead of the global batch max (measured 36 ->
-    # 31 ms per 16k-problem stage 1 on v5e)
-    if batch_tile is None:
-        batch_tile = default_batch_tile(tree.njoints)
-    if fused_stage1 is None:
-        fused_stage1 = (
-            jax.default_backend() == "tpu"
-            and not params.logging
-            and not params.verbose
-            and q.shape[0] % batch_tile == 0
-            and not tree.has_q_dependent_S  # no universal joints in-kernel
-            # tall tree + check_interval>1 overflows the Mosaic scoped-VMEM
-            # stack (fused_eligibility; measured on talos, ROADMAP round-5).
-            # Inline gate (not resolve_fused): this is the documented path
-            # for universal trees, where a fused fallback warning would be
-            # noise — there is no fused alternative to fall back FROM.
-            and not (params.check_interval > 1
-                     and tree.njoints * batch_tile > 3000)
-        )
     # both stages under ONE jit: XLA dead-code-eliminates the stage-1 result
     # assembly and keeps the intermediate state on-device with no host sync
-    # between stages (measured 126 ms -> 84 ms per 16k batch on v5e)
+    # between stages
     return _two_stage_jit(
         tree.astype(jnp.float32), tree.astype(jnp.float64), p1, p2, q,
         _cast_problem(problem, jnp.float32), _cast_problem(problem, jnp.float64),
         _cast_state(warm_state, jnp.float32) if warm_state is not None else None,
-        fused_stage1=bool(fused_stage1), batch_tile=batch_tile,
-        interpret=_interpret,
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnums=(2, 3),
-    static_argnames=("fused_stage1", "batch_tile", "interpret"),
-)
-def _two_stage_jit(tree32, tree64, p1, p2, q, prob32, prob64, warm_state,
-                   fused_stage1=False, batch_tile=256, interpret=False):
-    if fused_stage1:
-        from ..kernels.fused import _fused_body
-
-        with jax.enable_x64(False):  # keep traced literals 32-bit for Mosaic
-            res1 = _fused_body(
-                p1, batch_tile, interpret, tree32, q.astype(jnp.float32),
-                prob32, warm_state,
-            )
-    else:
-        res1 = _solve_impl(tree32, p1, q.astype(jnp.float32), prob32, warm_state)
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _two_stage_jit(tree32, tree64, p1, p2, q, prob32, prob64, warm_state):
+    res1 = _solve_impl(tree32, p1, q.astype(jnp.float32), prob32, warm_state)
     res2 = _solve_impl(
         tree64, p2, q.astype(jnp.float64), prob64,
         _cast_state(res1.state, jnp.float64),

@@ -1,6 +1,6 @@
 """The production batched ADMM solver.
 
-TPU-native re-design of `FirstOrderLoikOptimizedTpl`
+Batched re-design of `FirstOrderLoikOptimizedTpl`
 (loik-loid-optimized.hpp:22-808): one jit-compiled `lax.while_loop` whose
 body is a full ADMM iteration over a BATCH of independent problems —
 
@@ -12,7 +12,8 @@ with these deliberate departures from the reference's structure:
 
 - Tree sweeps unroll at TRACE time over the static topology: each per-joint
   step is pure SSA on (6,B)/(6,6,B) values (no dynamic indexing, no
-  scatter); the batch axis is trailing so it rides the TPU vector lanes.
+  scatter); the batch axis is trailing, so every elementwise op runs
+  across the whole batch.
 - Per-joint D blocks use the joint's EXACT dof count (static): revolute
   joints get scalar reciprocals, free-flyers get 6x6 batched inverses —
   the branchless analog of pinocchio's `calc_aba` per-joint-type dispatch
@@ -96,6 +97,24 @@ def prepare_problem(tree, problem: IkProblem, B: int, dtype) -> PreparedProblem:
     )
 
 
+def with_S_all(tree, prob: PreparedProblem, dtype) -> PreparedProblem:
+    """Attach precomputed per-problem motion subspaces for batched-geometry
+    trees (axis (N, B, 3), the mixed super-batch path): S becomes DATA,
+    (N, 6, K, B) built once per solve, instead of being rebuilt from the
+    axis leaf inside the loop."""
+    K = tree.nv_max
+    if any(k != K for k in tree.nvs):
+        raise ValueError(
+            "batched geometry needs uniform joint dof counts (serial 1-dof "
+            "chains)"
+        )
+    S_all = jnp.stack(
+        [jnp.moveaxis(tree.joint_S(i).astype(dtype), 0, -1)
+         for i in range(tree.njoints)]
+    )
+    return dataclasses.replace(prob, S_all=S_all)
+
+
 def fwd_pass_init(tree, q):
     """FK: liMi per joint in trailing-batch layout.  q (B, nq).
     (FwdPassInit, loik-loid-optimized.hxx:253-283; oMi is not needed by the
@@ -113,12 +132,10 @@ def _S_lists(tree, prob: PreparedProblem, B: int, dtype):
     """Per-joint motion-subspace tiles (6, k, B), exact dof sizes.
 
     S leaves are traced (they derive from the tree's axis leaf), broadcast
-    to the full (6, k, B) tile up front: a shared (6, k, 1) operand makes
-    k>1 contractions broadcast in sublanes AND lanes at once, which Mosaic
-    rejects ("Broadcast in both sublanes and lanes"); XLA fuses the
-    explicit broadcast into consumers either way.  Per-problem batched
-    subspaces — (B, 6, k) from the mixed super-batch path — move their
-    batch dim to the trailing lane axis instead."""
+    to the full (6, k, B) tile up front; XLA fuses the explicit broadcast
+    into consumers.  Per-problem batched subspaces — (B, 6, k) from the
+    mixed super-batch path — move their batch dim to the trailing axis
+    instead."""
     def _S_tile(i):
         Si = tree.joint_S(i).astype(dtype)
         if Si.ndim == 3:
@@ -137,11 +154,7 @@ def _h_sweep(tree, prob: PreparedProblem, params: SolverParams,
     """The mu-dependent half of the backward Riccati sweep: accumulated His,
     U = H S, D^-1 and U D^-1 per joint (calc_aba quantities,
     loik-loid-optimized.hxx:21-83).  Depends only on (mu_eq, mu_ineq) and the
-    iteration-constant geometry — not on the duals or p.  (A penalty-epoch
-    cache of these quantities was built and measured in round 3: neutral on
-    flagship, -10% on solo12, VMEM OOM on talos — the kernel is VPU-issue
-    bound, so the removed FMAs were pipelining behind the many small ops.
-    Recorded in ROADMAP; the scaffolding was removed in round 4.)"""
+    iteration-constant geometry — not on the duals or p."""
     N = tree.njoints
     dtype = st.vis.dtype
     nvs, parents = tree.nvs, tree.parents
@@ -165,8 +178,8 @@ def _h_sweep(tree, prob: PreparedProblem, params: SolverParams,
         Di = bsp.mtm(Si, Ui)                               # S^T H S (k,k,B)
         Ri = mu_ineq * jnp.eye(k, dtype=dtype)[:, :, None]
         Di = Di + Ri
-        # unrolled SPD Cholesky inverse: Mosaic-lowerable (linalg.inv's LU is
-        # not) and free of the XLA batch transposes around LAPACK kernels
+        # unrolled SPD Cholesky inverse: elementwise over the batch, free of
+        # the batch transposes around LAPACK-shaped kernels
         Dinv_i = bsp.spd_inv(Di)
         Dinv[i], U[i] = Dinv_i, Ui
         par = parents[i]
@@ -213,8 +226,7 @@ def _iteration(tree, prob: PreparedProblem, params: SolverParams, st: SolverStat
     mu_eq = st.mu_eq  # (B,)
     mu_ineq = st.mu_ineq
 
-    # dtype-pinned scalar hyper-parameters: bare Python floats trace as
-    # weak-f64 scalars under x64, which the Mosaic kernel lowering rejects
+    # dtype-pinned scalar hyper-parameters
     rho = jnp.asarray(params.rho, dtype)
     zero = jnp.asarray(0.0, dtype)
     tol_abs = jnp.asarray(params.tol_abs, dtype)
@@ -227,8 +239,7 @@ def _iteration(tree, prob: PreparedProblem, params: SolverParams, st: SolverStat
     # The H half (His, U, D^-1, U D^-1 — everything touched by the Riccati
     # matrix recursion) lives in `_h_sweep`; the p/r half below runs every
     # iteration.  Constrained joints get their mu_eq terms added on the
-    # unstacked values (no scatter — keeps the whole pass SSA, which both
-    # XLA and the Mosaic kernel lowering need).
+    # unstacked values (no scatter — keeps the whole pass SSA).
     r = st.w - mu_ineq * st.z                      # (N,K,B)
     if prob.r_offset is not None:  # delta-duals nu-block linear term
         r = r + prob.r_offset
@@ -480,19 +491,15 @@ def _masked_merge(mask, new, old):
 
 
 def loop_cond(st: SolverState):
-    """Masked-termination condition (kept as the public single-state form;
-    the loop drivers read it through their carry codecs)."""
+    """Masked-termination condition: any problem still running."""
     return jnp.any(st.running)
 
 
 def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
     """One ADMM iteration + flag/penalty transitions as a pure
-    SolverState -> SolverState function.  BOTH loop drivers run THIS body —
-    the XLA `lax.while_loop` directly on the SolverState carry, the fused
-    Pallas kernel through its uniform->=2-D carry codec — so their compiled
-    graphs stay shape-congruent (differently-structured graphs make XLA's
-    fusion choices fp-diverge, breaking the bit-exact fused-vs-XLA drop-in
-    contract observed under the 8-virtual-device test env)."""
+    SolverState -> SolverState function.  Every solver loop runs THIS body:
+    the masked `lax.while_loop` of `_solve_loop` and the fixed-length
+    `lax.scan` of `diff.solve_unrolled`."""
 
     max_iter = params.max_iter
     K = params.check_interval
@@ -506,22 +513,18 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
         i = st.it + K
         active = st.running                      # (B,)
         # check_interval > 1: K-1 check-free ADMM iterations (trace-time
-        # unrolled — no lax.cond, which Mosaic cannot legalize here), then
-        # one full iteration with residuals/flags.  Frozen problems advance
-        # through the micro-iterations too but are restored wholesale by the
-        # single masked merge below (the mask is constant within the body,
-        # so merging once at the end equals merging every micro-step; the
-        # per-micro-step variant was tried for VMEM live-range relief on
-        # talos and measured WORSE — Mosaic's stack grew 16.75->16.99 MB).
+        # unrolled), then one full iteration with residuals/flags.  Frozen
+        # problems advance through the micro-iterations too but are restored
+        # wholesale by the single masked merge below (the mask is constant
+        # within the body, so merging once at the end equals merging every
+        # micro-step).
         cur = st
         if K > 1:
             # hoist the Riccati matrix half: (mu_eq, mu_ineq, liMi) are
             # constant across the K micro-iterations, so S and the H-sweep
             # (the FMA-heavy congruences) are computed once per body call
-            # and shared — bit-identical values.  Measured perf-neutral on
-            # v5e (7.41 vs 7.18-7.31 ms/16k flagship batch): the compiler
-            # already CSE'd the duplicate sweeps; the hoist makes that
-            # dedup explicit and compiler-independent
+            # and shared — bit-identical values, and the dedup no longer
+            # depends on the compiler's CSE
             S_h = _S_lists(tree, prob, st.vis.shape[-1], st.vis.dtype)
             hc = (S_h, _h_sweep(tree, prob, params, st, S_h))
         else:
@@ -573,15 +576,12 @@ def make_loop_body(tree, prob: PreparedProblem, params: SolverParams):
             mu_next,
             jnp.asarray(1e-12, mu_next.dtype),
             jnp.asarray(1e12, mu_next.dtype),
-        )  # dtype-pinned bounds: under x64 the float literals become f64
-           # scalars, which the Mosaic kernel lowering rejects
+        )
         mu_next = jnp.where(do_mu, mu_next, st.mu)
         mu_eq_next = jnp.where(do_mu, eq_scale * mu_next, st.mu_eq)
         mu_ineq_next = jnp.where(do_mu, mu_next, st.mu_ineq)
 
         # iteration budget: main loop runs i <= max_iter-1; tail runs i <= max_iter
-        # (boolean algebra, not jnp.where with scalar-bool branches — that
-        # construct crashes the Mosaic TPU compiler inside the fused kernel)
         budget_next = (in_tail_next & (i + K <= max_iter)) | (
             ~in_tail_next & (i + K <= max_iter - 1)
         )
@@ -657,7 +657,7 @@ def _solve_loop(tree, prob: PreparedProblem, params: SolverParams, st: SolverSta
     """Run the ADMM main loop + per-problem infeasibility tail solves with
     masked termination (Solve, loik-loid-optimized.hpp:368-455 +
     InfeasibilityTailSolve :266-319) — one `lax.while_loop` over the shared
-    `make_loop_body` (the same body the fused kernel compiles on-chip)."""
+    `make_loop_body`."""
     body = make_loop_body(tree, prob, params)
     return jax.lax.while_loop(loop_cond, body, st)
 
@@ -731,10 +731,9 @@ def _flat_nu(tree, padded):
 def _solve_impl(tree, params: SolverParams, q, problem: IkProblem,
                 warm_state: Optional[SolverState], liMi=None,
                 tol_scales=None):
-    # On TPU the default matmul precision lowers f32 einsum operands to
-    # bfloat16 on the MXU — ~3 significant digits, which stalls the ADMM
-    # recursion far above tolerance (0/1024 convergence at tol 1e-4 in
-    # testing).  The sweeps are tiny 6x6 contractions; force full f32.
+    # Full f32 for every dot on the path (FK included): a reduced-precision
+    # product (TF32 on GPUs keeps ~3 digits) would stall the ADMM recursion
+    # far above tolerance.
     with jax.default_matmul_precision("highest"):
         return _solve_impl_inner(tree, params, q, problem, warm_state, liMi,
                                  tol_scales)

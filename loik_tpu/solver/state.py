@@ -1,10 +1,10 @@
 """SolverState / PreparedProblem / SolveResult pytrees for the fast solver.
 
-The TPU-native replacement of `IkIdDataTypeOptimizedTpl`
+The batched replacement of `IkIdDataTypeOptimizedTpl`
 (loik-loid-data-optimized.hpp:62): the per-joint Eigen workspace becomes flat
 structure-of-arrays tensors with the problem batch as the TRAILING axis (see
 batched_spatial.py for why).  The reference's 15 incrementally-maintained inf
-norms (loik-loid-data-optimized.hpp:259-329) are not stored — on TPU they are
+norms (loik-loid-data-optimized.hpp:259-329) are not stored — they are
 cheap `max` reductions recomputed per iteration from these arrays.
 
 Shape legend: N = moving joints, K = nv_max, NC = constraints, B = batch.
@@ -63,10 +63,9 @@ class PreparedProblem:
     tol_scale_primal: object = None
     tol_scale_dual: object = None
     # optional precomputed motion subspaces (N, 6, K, B), K uniform across
-    # joints — lets per-problem geometry (mixed super-batches, batched axis
-    # leaves) flow through the fused kernel, where S would otherwise have to
-    # be derived in-kernel from the axis leaf.  S is iteration-constant, so
-    # it is data, not computation.
+    # joints — per-problem geometry (mixed super-batches, batched axis
+    # leaves) built once per solve (`solve.with_S_all`).  S is
+    # iteration-constant, so it is data, not computation.
     S_all: object = None
     # optional per-joint tuple of exact-size (6, nv_i, B) subspaces for trees
     # whose S depends on the configuration (universal joints): computed once

@@ -1,6 +1,6 @@
 """Batched spatial algebra on SE(3), motions (twists) and forces (wrenches).
 
-TPU-native replacement for the Eigen/Pinocchio spatial-algebra substrate the
+Batched JAX replacement for the Eigen/Pinocchio spatial-algebra substrate the
 reference builds on (cf. /root/reference/include/loik/loik-loid-data.hpp:10-28,
 which imports pinocchio SE3Tpl / MotionTpl / ForceTpl).  Everything here is a
 pure function on jnp arrays with arbitrary leading batch dims:

@@ -14,7 +14,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from loik_tpu.kernels import solve_fused
 from loik_tpu.model import robots
 from loik_tpu.params import SolverParams
 from loik_tpu.problem import make_problem
@@ -78,8 +77,10 @@ def test_check_interval_batch_masking():
     assert all(it % K == 0 for it in iters)
 
 
-def test_check_interval_fused_matches_xla():
-    """The fused kernel compiles the same K-unrolled body: exact drop-in."""
+def test_check_interval_f32_subbatch_invariant():
+    """The K-unrolled body in f32 is per-problem: solving two halves of a
+    batch reproduces the whole-batch solve exactly, iteration counts stay
+    on multiples of K."""
     K = 2
     tree = robots.get("panda_arm", "float32")
     b = np.zeros((1, 6))
@@ -93,15 +94,15 @@ def test_check_interval_fused_matches_xla():
     )
     params = SolverParams(max_iter=60, tol_abs=1e-4, tol_rel=1e-4,
                           check_interval=K)
-    r1 = solve(tree, params, qs, prob)
-    r2 = solve_fused(tree, params, qs, prob, batch_tile=16, interpret=True)
-    np.testing.assert_array_equal(np.asarray(r1.nu), np.asarray(r2.nu))
-    np.testing.assert_array_equal(
-        np.asarray(r1.iterations), np.asarray(r2.iterations)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(r1.converged), np.asarray(r2.converged)
-    )
+    whole = solve(tree, params, qs, prob)
+    halves = [solve(tree, params, qs[s], prob)
+              for s in (slice(0, 16), slice(16, 32))]
+    for name in ("nu", "iterations", "converged", "primal_infeasible"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(whole, name)),
+            np.concatenate([np.asarray(getattr(h, name)) for h in halves]))
+    assert (np.asarray(whole.iterations) % K == 0).all()
+    assert np.asarray(whole.converged).mean() > 0.5
 
 
 def test_check_interval_infeasible_still_detected():

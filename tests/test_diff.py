@@ -1,5 +1,5 @@
 """Differentiable solves: gradients through the unrolled solver vs central
-finite differences (f64, CPU).  No reference analog — net-new TPU-native
+finite differences (f64, CPU).  No reference analog — net-new
 surface (see solver/diff.py)."""
 
 import jax

@@ -1,136 +1,15 @@
-"""Fused-path fallback policy: no silent 14x cliff (VERDICT r4 weak #3).
-
-The fused Pallas kernel only runs for eligible shapes (f32, constant
-subspaces, batch divisible by the tile, no logging/verbose).  Ineligible
-calls must either warn once naming the blocker (fused=None on TPU), raise
-(fused='require'), or stay silent only where the fallback is expected
-(CPU correctness tier)."""
-
-import warnings
+"""Test-harness guards and the plain tracking tick."""
 
 import jax
 import numpy as np
-import pytest
 
 from loik_tpu.api import DiffIkSolver
-from loik_tpu.kernels.fused import (
-    _fallback_warned,
-    fused_eligibility,
-    resolve_fused,
-)
 from loik_tpu.model import robots
 from loik_tpu.params import SolverParams
-from loik_tpu.solver.stream import solve_stream
 
 from tests.test_oracle import fixture_problem
 
 PARAMS = SolverParams(max_iter=64, tol_abs=1e-4, tol_rel=1e-4)
-
-
-def _on_tpu(monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-
-def test_eligibility_reasons(monkeypatch):
-    tree = robots.panda_arm("float32")
-    # CPU backend: ineligible, named
-    ok, reason = fused_eligibility(tree, PARAMS, 256, 256,
-                                   dtype=np.float32)
-    assert not ok and "backend" in reason
-    _on_tpu(monkeypatch)
-    ok, reason = fused_eligibility(tree, PARAMS, 256, 256, dtype=np.float32)
-    assert ok and reason is None
-    ok, reason = fused_eligibility(tree, PARAMS, 1000, 256, dtype=np.float32)
-    assert not ok and "divisible" in reason
-    ok, reason = fused_eligibility(tree, PARAMS, 256, 256, dtype=np.float64)
-    assert not ok and "float32" in reason
-    ok, reason = fused_eligibility(tree, PARAMS.replace(logging=True),
-                                   256, 256, dtype=np.float32)
-    assert not ok and "logging" in reason
-    ok, reason = fused_eligibility(tree, PARAMS.replace(verbose=True),
-                                   256, 256, dtype=np.float32)
-    assert not ok and "verbose" in reason
-    utree = robots.mobile_ur5("float32")  # universal pan/tilt head
-    assert utree.has_q_dependent_S
-    ok, reason = fused_eligibility(utree, PARAMS, 256, 256,
-                                   dtype=np.float32)
-    assert not ok and "subspace" in reason
-    # delta-duals criteria: dtype=None skips the f32 gate (ADVICE r4)
-    ok, reason = fused_eligibility(tree, PARAMS, 256, 256, dtype=None)
-    assert ok
-    # tall tree + check_interval>1: the Mosaic scoped-VMEM boundary is a
-    # named eligibility reason, not an opaque remote-compile OOM
-    ttree = robots.talos("float32")
-    ok, reason = fused_eligibility(ttree, PARAMS.replace(check_interval=2),
-                                   256, 128, dtype=np.float32)
-    assert not ok and "scoped-VMEM" in reason and "check_interval" in reason
-    ok, reason = fused_eligibility(ttree, PARAMS, 256, 128, dtype=np.float32)
-    assert ok  # K=1 on talos fits
-    ok, reason = fused_eligibility(tree, PARAMS.replace(check_interval=4),
-                                   256, 256, dtype=np.float32)
-    assert ok  # panda at K=4 fits (9 joints x 256 = 2304 < boundary)
-
-
-def test_fallback_warns_once_on_tpu(monkeypatch):
-    """The B=1000 case: a fused-eligible call shape degraded by tile
-    divisibility warns ONCE naming the reason."""
-    _on_tpu(monkeypatch)
-    _fallback_warned.clear()
-    tree = robots.panda_arm("float32")
-    with pytest.warns(UserWarning, match="divisible"):
-        fused = resolve_fused(None, tree, PARAMS, 1000, 256,
-                              dtype=np.float32, where="solve_tracking")
-    assert fused is False
-    # second identical call: no second warning
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert resolve_fused(None, tree, PARAMS, 1000, 256,
-                             dtype=np.float32,
-                             where="solve_tracking") is False
-    # a DIFFERENT blocker at the same site still warns
-    with pytest.warns(UserWarning, match="float32"):
-        resolve_fused(None, tree, PARAMS, 1024, 256, dtype=np.float64,
-                      where="solve_tracking")
-    _fallback_warned.clear()
-
-
-def test_cpu_fallback_is_silent():
-    """On CPU the XLA path is the expected backend: no warning noise."""
-    tree = robots.panda_arm("float32")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert resolve_fused(None, tree, PARAMS, 1000, 256,
-                             dtype=np.float32) is False
-
-
-def test_require_raises_with_reason():
-    tree = robots.panda_arm("float32")
-    with pytest.raises(ValueError, match="backend"):
-        resolve_fused("require", tree, PARAMS, 256, 256, dtype=np.float32,
-                      where="solve_stream")
-
-
-def test_solver_require_mode():
-    tree = robots.ur5()
-    problem = fixture_problem(tree)
-    with pytest.raises(ValueError, match="fused must be"):
-        DiffIkSolver(tree, PARAMS, problem.constraint_links, problem,
-                     fused="sometimes")
-    s = DiffIkSolver(tree, PARAMS, problem.constraint_links, problem,
-                     fused="require")
-    with pytest.raises(ValueError, match="solve_tracking.*backend"):
-        s.solve_tracking(tree.neutral(), problem.constraint_links[0],
-                         b=np.zeros(6))
-
-
-def test_stream_require_mode():
-    tree = robots.ur5()
-    problem = fixture_problem(tree)
-    b_seq = np.zeros((3, 6))
-    b_seq[:, 2] = 0.1
-    with pytest.raises(ValueError, match="solve_stream.*backend"):
-        solve_stream(tree, PARAMS, tree.neutral()[None], problem, 0, b_seq,
-                     fused="require")
 
 
 def test_map_count_guard_mechanism(monkeypatch):
@@ -156,11 +35,11 @@ def test_map_count_guard_mechanism(monkeypatch):
 
 
 def test_forced_false_still_solves():
-    """fused=False forces the XLA tick and produces a correct solve."""
+    """A plain tracking tick on the production loop produces a correct
+    solve."""
     tree = robots.ur5()
     problem = fixture_problem(tree)
-    s = DiffIkSolver(tree, PARAMS, problem.constraint_links, problem,
-                     fused=False)
+    s = DiffIkSolver(tree, PARAMS, problem.constraint_links, problem)
     b = np.zeros(6)
     b[2] = 0.1
     res = s.solve_tracking(tree.neutral(), problem.constraint_links[0], b=b)

@@ -190,7 +190,7 @@ def test_fast_logging():
 
 
 def test_fast_f32():
-    """f32 path (the TPU default) still converges at loose tolerance."""
+    """f32 path (the production default) still converges at loose tolerance."""
     tree = robots.ur5("float32")
     problem = fixture_problem(tree)
     params = SolverParams(max_iter=200, tol_abs=1e-3, tol_rel=1e-3)

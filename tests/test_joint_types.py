@@ -333,8 +333,8 @@ def test_mobile_ur5_end_to_end():
 
 
 def test_mobile_ur5_two_stage_xla_fallback():
-    """solve_two_stage on a q-dependent-S tree must auto-disable the fused
-    stage (universal joints) and still certify."""
+    """solve_two_stage on a q-dependent-S tree (universal joints) must
+    still certify."""
     from loik_tpu.solver.refine import solve_two_stage
 
     tree = robots.mobile_ur5()
@@ -348,10 +348,10 @@ def test_mobile_ur5_two_stage_xla_fallback():
     assert np.asarray(res.converged).mean() > 0.8
 
 
-def test_helical_fused_matches_xla():
-    """Helical chains are constant-subspace 1-dof trees: the fused kernel
-    (interpret mode) must reproduce the XLA path exactly."""
-    from loik_tpu.kernels.fused import solve_fused
+def test_helical_f32_matches_oracle():
+    """Helical chains are constant-subspace 1-dof trees: the f32 production
+    solve agrees with the f64 oracle on flags and solutions."""
+    from loik_tpu.oracle import OracleSolver
 
     jt = [dict(name="h0", parent=-1, type=HELICAL, axis=(0, 0, 1),
                pitch=0.15, velocity_limit=3.0),
@@ -371,22 +371,41 @@ def test_helical_fused_matches_xla():
     qs = tree.random_configuration(jax.random.PRNGKey(4), (16,)).astype(
         jnp.float32)
     params = SolverParams(max_iter=60, tol_abs=1e-4, tol_rel=1e-4)
-    r1 = solve(tree, params, qs, problem)
-    r2 = solve_fused(tree, params, qs, problem, batch_tile=16,
-                     interpret=True)
-    np.testing.assert_array_equal(np.asarray(r1.nu), np.asarray(r2.nu))
-    np.testing.assert_array_equal(np.asarray(r1.converged),
-                                  np.asarray(r2.converged))
-    assert np.asarray(r1.converged).mean() > 0.5
+    res = solve(tree, params, qs, problem)
+    assert res.nu.dtype == jnp.float32
+    conv = np.asarray(res.converged)
+    assert conv.mean() > 0.5
+    tree64 = tree.astype(jnp.float64)
+    prob64 = problem.replace(**{k: np.asarray(getattr(problem, k), np.float64)
+                                for k in ("H_ref", "v_ref", "A", "b", "lb",
+                                          "ub")})
+    for i in range(4):
+        o = OracleSolver(tree64, params).solve(np.asarray(qs[i], np.float64),
+                                               prob64)
+        assert o.converged == bool(conv[i])
+        if o.converged:
+            np.testing.assert_allclose(np.asarray(res.nu[i]), o.nu,
+                                       atol=1e-3)
 
 
-def test_fused_rejects_universal():
-    from loik_tpu.kernels.fused import solve_fused
-
-    tree = robots.mobile_ur5("float32")
-    ee = tree.joint_names.index("wrist_3_joint")
-    problem = make_problem(tree, (ee,), dtype=jnp.float32)
-    qs = tree.random_configuration(jax.random.PRNGKey(0), (8,)).astype(
-        jnp.float32)
-    with pytest.raises(ValueError, match="universal"):
-        solve_fused(tree, PARAMS, qs, problem)
+def test_universal_f32_solve():
+    """Configuration-dependent subspaces (universal joints) run in f32 on
+    the production loop and agree with the f64 solve."""
+    ee_tree = robots.mobile_ur5("float32")
+    ee = ee_tree.joint_names.index("wrist_3_joint")
+    b = np.zeros((1, 6))
+    b[0, 2] = 0.2
+    vl = np.minimum(np.asarray(ee_tree.velocity_limit), 4.0)
+    qs = ee_tree.random_configuration(jax.random.PRNGKey(0), (8,))
+    params = SolverParams(max_iter=200, tol_abs=1e-4, tol_rel=1e-4)
+    r32 = solve(ee_tree, params, qs.astype(jnp.float32),
+                make_problem(ee_tree, (ee,), b=b, lb=-vl, ub=vl,
+                             dtype=jnp.float32))
+    tree64 = robots.mobile_ur5("float64")
+    r64 = solve(tree64, params, qs.astype(jnp.float64),
+                make_problem(tree64, (ee,), b=b, lb=-vl, ub=vl))
+    assert r32.nu.dtype == jnp.float32
+    both = np.asarray(r32.converged) & np.asarray(r64.converged)
+    assert both.mean() > 0.5
+    np.testing.assert_allclose(np.asarray(r32.nu)[both],
+                               np.asarray(r64.nu)[both], atol=2e-3)

@@ -154,3 +154,21 @@ def test_stream_on_sharded_fleet():
                                atol=1e-10)
     np.testing.assert_array_equal(np.asarray(sh.converged),
                                   np.asarray(ref.converged))
+
+
+def test_task_error_dot_runs_at_full_f32():
+    """The multistart score's task product is pinned to HIGHEST precision:
+    a GPU's default TF32 (~1e-3 relative) put ~5e-5 of error into top-seed
+    scores that are ~1e-7 in f64 (chip_smoke's multistart check, tolerance
+    1e-5 between the reported score and its f64 re-evaluation)."""
+    import jax.numpy as jnp
+
+    from loik_tpu.parallel.multistart import task_error
+
+    tree = robots.get("panda_arm", "float32")
+    problem = make_problem(tree, (tree.njoints - 1,), dtype=jnp.float32)
+    q = tree.random_configuration(jax.random.PRNGKey(0), (4,))
+    res = solve(tree, SolverParams(max_iter=5), q, problem)
+    hlo = jax.jit(task_error).lower(res, problem).as_text()
+    dots = [ln for ln in hlo.splitlines() if "dot_general" in ln]
+    assert dots and all("precision = [HIGHEST, HIGHEST]" in ln for ln in dots)

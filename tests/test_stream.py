@@ -97,20 +97,23 @@ def test_stream_per_tick_q_and_A():
                               np.asarray(res.converged))
 
 
-def test_stream_fused_interpret_parity():
-    """The fused-kernel stream (interpret mode) matches the XLA stream."""
+def test_stream_f32_matches_tick_loop():
+    """The f32 stream equals a Python loop of f32 `solve_tracking` ticks
+    (the production tracking tick) and stays f32 under x64."""
     tree, params, problem, q = _setup(dtype=jnp.float32, B=8)
     T = 3
     b_seq = _b_seq(T, np.float32)
-    xla = solve_stream(tree, params, q, problem, 0, b_seq, fused=False)
-    fus = solve_stream(tree, params, q, problem, 0, b_seq, fused=True,
-                       batch_tile=8, _interpret=True)
-    np.testing.assert_allclose(np.asarray(fus.nu), np.asarray(xla.nu),
-                               rtol=2e-5, atol=2e-5)
-    assert np.array_equal(np.asarray(fus.converged),
-                          np.asarray(xla.converged))
-    assert np.array_equal(np.asarray(fus.iterations),
-                          np.asarray(xla.iterations))
+    stream = solve_stream(tree, params, q, problem, 0, b_seq)
+    assert stream.nu.dtype == jnp.float32
+    solver = DiffIkSolver(tree, params, (tree.njoints - 1,), problem=problem)
+    for t in range(T):
+        res = solver.solve_tracking(q, tree.njoints - 1, b=b_seq[t])
+        np.testing.assert_allclose(np.asarray(stream.nu[t]),
+                                   np.asarray(res.nu), rtol=1e-6, atol=1e-6)
+        assert np.array_equal(np.asarray(stream.converged[t]),
+                              np.asarray(res.converged))
+        assert np.array_equal(np.asarray(stream.iterations[t]),
+                              np.asarray(res.iterations))
 
 
 def test_stream_rejects_logging():

@@ -92,16 +92,23 @@ def test_verbose_infeasibility_warning(capfd):
     assert "WARNING" in out and "infeasible" in out
 
 
-def test_verbose_rejected_by_fused_kernel():
-    from loik_tpu.kernels.fused import solve_fused
+def test_verbose_f32_tracking_tick(capfd):
+    """verbose runs on the f32 production tracking tick too."""
+    from loik_tpu.api import DiffIkSolver
 
     tree = robots.get("ur5", "float32")
     b = np.zeros((1, 6))
     problem = make_problem(tree, (tree.njoints - 1,), b=b,
                            lb=-2 * np.ones(tree.nv), ub=2 * np.ones(tree.nv),
                            dtype=jnp.float32)
-    params = SolverParams(verbose=True)
+    params = SolverParams(max_iter=40, tol_abs=1e-4, tol_rel=1e-4,
+                          verbose=True, warm_start=True)
     q = tree.random_configuration(jax.random.PRNGKey(0), (4,)).astype(
         jnp.float32)
-    with pytest.raises(ValueError, match="verbose"):
-        solve_fused(tree, params, q, problem, interpret=True)
+    solver = DiffIkSolver(tree, params, (tree.njoints - 1,), problem=problem)
+    res = solver.solve_tracking(q, tree.njoints - 1, b=np.full(6, 0.01))
+    jax.effects_barrier()
+    out = capfd.readouterr().out
+    assert "[loik] solve finished:" in out
+    assert res.nu.dtype == jnp.float32
+    assert bool(np.asarray(res.converged).any())
